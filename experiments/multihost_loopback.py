@@ -1,8 +1,9 @@
 """Multi-host (multi-process) loopback validation of the distributed solver.
 
 Launches N processes on this host, each owning some CPU devices, joined into
-one JAX distributed runtime (``jax.distributed.initialize`` — the identical
-code path used across real TPU pod hosts over DCN). The frame-sharded MAP
+one JAX distributed runtime (``jax.distributed.initialize`` — the same
+code path a multi-host run takes). Every worker is pinned to the CPU, so the
+rehearsal never opens an accelerator. The frame-sharded MAP
 solve then runs over the global mesh and every process checks the result
 against a locally computed single-process reference.
 
@@ -78,7 +79,7 @@ def orchestrate(num_processes: int = 2) -> int:
             subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__),
                  "--process_id", str(pid), "--num_processes", str(num_processes)],
-                env={**os.environ, "PYTHONPATH": REPO},
+                env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"},
             )
         )
     codes = [p.wait(timeout=600) for p in procs]

@@ -1,23 +1,22 @@
 """Frame-mesh scaling across a REAL process boundary (jax.distributed).
 
-VERDICT r4 #10: the scaling story needs at least one measured point with a
-process boundary in it — the closest this single-chip environment gets to
-the >=2-hosts north-star (BASELINE.md). This harness runs the SAME
+The scaling story needs at least one point with a process boundary in it
+(the >=2-hosts north-star, BASELINE.md). This harness runs the SAME
 frame-sharded MAP solve (fixed iteration budget) in two configurations:
 
   1p: one process owning 1 CPU device      — all K frames on one device
   2p: two processes x 1 CPU device each,   — K/2 frames per process,
       joined by ``jax.distributed.initialize`` over localhost gRPC (the
-      identical code path TPU pod hosts run over DCN)
+      same code path a multi-host run takes)
 
 and reports frame-iters/s for each plus the speedup. On this 2-vCPU host
 the 2-process run genuinely uses both cores, so the speedup reflects real
 parallel work with the gradient psum crossing the process boundary every
-CG iteration. CPU-virtual numbers are not chip numbers; the artifact is
-the measured cross-process collective path.
+CG iteration. Every worker is pinned to the CPU: these are CPU numbers, not
+device numbers; the artifact is the cross-process collective path.
 
 Run:  python experiments/multihost_scaling.py
-Output: one JSON line (recorded in BENCH_CONFIGS.md).
+Output: one JSON line.
 """
 
 from __future__ import annotations
@@ -116,7 +115,7 @@ def orchestrate() -> int:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__),
                  "--process_id", str(pid), "--num_processes", str(nproc)],
-                env={**os.environ, "PYTHONPATH": REPO},
+                env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"},
                 stdout=subprocess.PIPE, text=True,
             ))
         outs = [p.communicate(timeout=600)[0] for p in procs]

@@ -1,13 +1,13 @@
-"""super_resolution_tpu — a TPU-native multiframe super-resolution framework.
+"""super_resolution_tpu — a JAX multiframe super-resolution framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 rteammco/super-resolution C++ framework: multiframe MAP super-resolution
 with a warp -> PSF-blur -> decimate degradation model, IRLS-reweighted
 TV/BTV regularization, matrix-free CG/LBFGS solvers, subpixel registration,
 hyperspectral (ENVI + spectral PCA) and wavelet-domain solving — built
-TPU-first: channel-major [C, H, W] arrays, pure-function operators with
+for accelerators: channel-major [C, H, W] arrays, pure-function operators with
 exact adjoints, `lax.while_loop` solvers under `jit`, and `jax.sharding`
-meshes (frame / band / spatial-tile axes) for multi-chip scaling.
+meshes (frame / band / spatial-tile axes) for multi-device scaling.
 
 Reference parity notes cite file:line of the C++ reference throughout.
 """

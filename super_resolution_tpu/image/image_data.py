@@ -1,4 +1,4 @@
-"""ImageData — the N-channel image container (TPU-native equivalent of
+"""ImageData — the N-channel image container (the JAX equivalent of
 ``src/image/image_data.{h,cpp}``).
 
 Design: a thin host-level wrapper over a single channel-major ``[C, H, W]``

@@ -1,4 +1,4 @@
-"""The forward/adjoint degradation image model (TPU-native equivalent of
+"""The forward/adjoint degradation image model (the JAX equivalent of
 ``src/image_model/``).
 
 Models the observation process ``y_k = D B M_k x (+ n)``:

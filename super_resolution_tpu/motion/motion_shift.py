@@ -1,4 +1,4 @@
-"""Per-frame translational motion shifts (TPU-native equivalent of
+"""Per-frame translational motion shifts (the JAX equivalent of
 ``src/motion/motion_shift.{h,cpp}``).
 
 A MotionShiftSequence holds (dx, dy) subpixel shifts, one per frame, relative

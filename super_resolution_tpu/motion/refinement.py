@@ -12,13 +12,12 @@ the data-term cost
 is a smooth function of each frame's 2 shift parameters (the bilinear warp
 is piecewise-linear in the shift, so exact JVP Jacobians exist), and a few
 damped Gauss-Newton steps per frame recover the motion to well below the
-one-shot registration error. Because the production estimated-motion solver
-runs the SHIFT-GENERIC fused kernel (``ops/pallas/degrade.py`` — shifts are
-runtime SMEM data), feeding refined shifts back costs ZERO recompiles: the
-alternating scheme (solve x | refine shifts | resume) reuses one executable
-throughout.
+one-shot registration error. Because the estimated-motion solver takes the
+shifts as traced arguments, feeding refined shifts back costs ZERO
+recompiles: the alternating scheme (solve x | refine shifts | resume) reuses
+one executable throughout.
 
-This is TPU-native through and through: the refinement is one jitted
+The refinement is one jitted
 program (vmapped over frames, ``lax.fori_loop`` over GN steps, 2 JVPs of
 the degradation chain per step) and runs on the same device as the solve.
 
@@ -90,7 +89,7 @@ def refine_shifts(
         b2 = -jnp.sum(j_dy * r)
         # Levenberg damping on the diagonal keeps the step well-posed on
         # flat frames (uniform regions: J ~ 0). The additive floor must
-        # keep det = a11*a22 in the f32 NORMAL range: TPU flush-to-zero
+        # keep det = a11*a22 in the f32 NORMAL range: a flush-to-zero device
         # would turn a subnormal det into 0 and the step into 0/0 = NaN
         # (1e-12 squared is 1e-24 — comfortably normal).
         a11 = a11 + lam * a11 + jnp.asarray(1e-12, dtype)

@@ -1,6 +1,6 @@
 // Native ENVI BSQ reader/writer for super_resolution_tpu.
 //
-// The TPU-native counterpart of the reference's C++ data loader
+// The counterpart of the reference's C++ data loader
 // (src/hyperspectral/hyperspectral_data_loader.cpp:37-118): streamed binary
 // reads of band-sequential float32 cubes with optional byte swapping, cropped
 // reads (seek-based, never materializing the full cube), and multithreaded

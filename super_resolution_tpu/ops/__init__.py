@@ -1,4 +1,4 @@
-"""Pure-function compute operators (the TPU equivalents of the reference's
+"""Pure-function compute operators (the JAX equivalents of the reference's
 per-pixel C++ loops). Everything here is shape-static, jit-safe, and vmappable.
 """
 

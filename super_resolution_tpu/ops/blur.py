@@ -8,8 +8,8 @@ flip the kernel) with BORDER_CONSTANT zero padding
 kernel (``blur_module.cpp:30-36``) — identical for the symmetric Gaussian.
 
 XLA's convolution primitive is also a correlation, so the forward map is a
-single depthwise ``lax.conv_general_dilated`` that the compiler lays onto the
-MXU/VPU and fuses with neighbors.
+single depthwise ``lax.conv_general_dilated`` (on the GPU, XLA hands it to
+cuDNN or its own convolution emitter).
 """
 
 from __future__ import annotations
@@ -59,8 +59,9 @@ def correlate2d(x: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
         window_strides=(1, 1),
         padding=((kh // 2, kh - 1 - kh // 2), (kw // 2, kw - 1 - kw // 2)),
         dimension_numbers=("NCHW", "OIHW", "NCHW"),
-        # TPU MXU convs default to bfloat16 passes; measured ~0.4% gradient
-        # error vs the f64 oracle on the north-star problem. Force true-f32.
+        # Full float32: at default precision an accelerator may run float32
+        # convolutions in reduced precision (TF32 on a GPU keeps about three
+        # decimal digits), too coarse for the parity tests.
         precision=lax.Precision.HIGHEST,
     )
     return out.reshape(*batch, h, w)

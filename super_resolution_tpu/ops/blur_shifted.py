@@ -1,10 +1,9 @@
 """Shifted-add correlation for small kernels.
 
-A k x k correlation on a single-channel image maps poorly onto the MXU (the
-systolic array wants many channels); for the small PSF kernels used here
-(3x3 .. 7x7) a sum of k^2 statically shifted, weighted copies is pure VPU
-work that XLA fuses with surrounding elementwise ops — no convolution
-dispatch, no layout changes. Numerically identical to
+For the small PSF kernels used here (3x3 .. 7x7), a sum of k^2 statically
+shifted, weighted copies is elementwise work that XLA fuses with the
+surrounding ops: no convolution dispatch, no layout changes. Numerically
+identical to
 :func:`super_resolution_tpu.ops.blur.correlate2d` (zero border).
 """
 

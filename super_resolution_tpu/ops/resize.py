@@ -140,8 +140,8 @@ def decimate(x: jnp.ndarray, scale: int) -> jnp.ndarray:
     """Top-left decimation: ``out[r, c] = x[r*scale, c*scale]``.
 
     The forward downsampling operator D (``downsampling_module.cpp:19-27`` via
-    INTER_NEAREST; selection-matrix form at :41-64). A strided slice — free to
-    fuse on TPU.
+    INTER_NEAREST; selection-matrix form at :41-64). A strided slice that XLA
+    fuses with its neighbours.
     """
     if scale == 1:
         return x

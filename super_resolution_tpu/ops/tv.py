@@ -14,7 +14,7 @@ Reference semantics (``src/optimization/tv_regularizer.cpp``):
              + shift_right(G s_x) + shift_down(G s_y) [+ shift_band(G s_z)]
 
   where shift_* moves values one step along the axis with zero fill — a
-  handful of pads and elementwise ops that XLA fuses into one VPU pass
+  handful of pads and elementwise ops that XLA fuses into one pass
   (the reference walks every pixel in a triple scalar loop).
 
 ``constants`` is the per-pixel ``lambda * irls_weight`` array, matching

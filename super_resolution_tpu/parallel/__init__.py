@@ -11,8 +11,3 @@ from super_resolution_tpu.parallel.data_parallel import (  # noqa: F401
     make_sharded_map_solver,
     shard_problem,
 )
-from super_resolution_tpu.parallel.pallas_sharded import (  # noqa: F401
-    make_band_sharded_pallas_solver,
-    make_band_sharded_pallas_vg,
-    make_frame_sharded_pallas_vg,
-)

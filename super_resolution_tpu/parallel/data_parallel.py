@@ -8,7 +8,7 @@ shardings, let XLA insert collectives):
   The data term's vmap-over-frames + sum then compiles to per-device partial
   sums with one ``psum`` over the frame axis per objective evaluation, and
   the whole CG/L-BFGS ``lax.while_loop`` runs in lockstep — exactly one
-  reduction per cost/gradient evaluation, riding ICI.
+  reduction per cost/gradient evaluation.
 - **Band parallelism**: shard the channel axis of both x and observations.
   For band-separable objectives (data term + 2D TV/BTV) the computation is
   embarrassingly parallel; use :func:`band_split_minimize` (a vmap over

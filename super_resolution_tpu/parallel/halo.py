@@ -22,7 +22,7 @@ a pixel is a pure function of x within radius 2).
 
 This is the hand-scheduled analog of what the XLA SPMD partitioner does for
 spatially partitioned convolutions; owning the exchange keeps the collective
-schedule explicit and lets the halo ride ICI once per objective evaluation.
+schedule explicit: one halo exchange per objective evaluation.
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ from super_resolution_tpu.parallel.mesh import COL_AXIS, ROW_AXIS
 __all__ = [
     "required_halo",
     "make_tiled_map_value_and_grad",
-    "make_tiled_pallas_vg",
     "halo_gather",
     "halo_scatter_sum",
 ]
@@ -207,279 +206,6 @@ def _btv_cost_and_grad_tiled(
                     t_masked[..., : hp - i, : wp - j], pad
                 )
     return cost, grad[sl]
-
-
-def make_tiled_pallas_vg(
-    mesh: Mesh,
-    observations: jnp.ndarray,
-    shifts,
-    blur_kernel,
-    scale: int,
-    regularizers: Sequence[tuple[object, float]] = (),
-    image_shape: tuple[int, int] | None = None,
-    shift_bound: float = 0.0,
-    pallas_tile: int = 0,
-    interpret: bool = False,
-    phase_io: bool = False,
-):
-    """Spatially tiled MAP objective running the FUSED PALLAS KERNEL per
-    (row, col) shard — the halo path at production kernel speed.
-
-    Each shard's work is: halo-gather a ``q``-rim of x (two ppermute rounds),
-    run ``pallas_data_term_cost_and_grad`` in shard mode (traced per-shard
-    ``origin``, ``global_hw`` masks, owned-pixel ``data_mask_lr``; fused
-    TV/BTV constants zero on the rim), psum the scalar cost, and
-    halo-scatter-sum the gradient rims back — identical collective schedule
-    to :func:`make_tiled_map_value_and_grad` but with the ~3x-faster fused
-    kernel (and ``phase_io``: the solver state stays polyphase planes,
-    sharded spatially, with the halo exchanged in plane space).
-
-    Mesh axes: ``row``/``col`` (spatial tiling) optionally x ``frame``
-    (per-device shifts via the SHIFT-GENERIC kernel — ``shift_bound > 0``
-    required; one extra gradient psum over ``frame``) x ``band`` (channel
-    blocks; the data term and 2D TV/BTV are band-separable so gradients stay
-    band-local). 3D spectral TV is not supported here (band coupling +
-    spatial tiling would need both halo systems at once).
-
-    ``observations``: global ``[K, C, H/s, W/s]``; ``static_shifts``: host
-    ``[K, 2]`` (ignored when ``shift_bound > 0`` — shifts become a traced
-    argument). Reference semantics anchor: the spatial loop nests this
-    parallelizes are ``objective_data_term.cpp:104-115`` and
-    ``tv_regularizer.cpp:21-106``.
-    """
-    from super_resolution_tpu.ops.btv import BilateralTotalVariationRegularizer
-    from super_resolution_tpu.ops.pallas.degrade import (
-        choose_tile,
-        hr_to_planes,
-        pack_btv_constants,
-        pack_tv_constants,
-        pallas_data_term_cost_and_grad,
-        planes_to_hr,
-    )
-    from super_resolution_tpu.ops.tv import TotalVariationRegularizer
-    from super_resolution_tpu.parallel.mesh import BAND_AXIS, FRAME_AXIS
-
-    regs = tuple(regularizers)
-    if len(regs) > 1:
-        raise ValueError("The fused kernel supports at most one regularizer.")
-    fuse_tv = bool(regs) and isinstance(regs[0][0], TotalVariationRegularizer)
-    fuse_btv = bool(regs) and isinstance(
-        regs[0][0], BilateralTotalVariationRegularizer
-    )
-    if fuse_tv and regs[0][0].use_3d:
-        raise ValueError("3D spectral TV is not supported on spatial meshes "
-                         "(band coupling + spatial tiling).")
-    if regs and not (fuse_tv or fuse_btv):
-        raise ValueError(f"Unsupported regularizer type: {type(regs[0][0])!r}")
-    if image_shape is None:
-        raise ValueError("image_shape=(H, W) is required (global masks).")
-
-    axis_sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    n_row = axis_sizes.get(ROW_AXIS, 1)
-    n_col = axis_sizes.get(COL_AXIS, 1)
-    n_frame = axis_sizes.get(FRAME_AXIS, 1)
-    n_band = axis_sizes.get(BAND_AXIS, 1)
-    row_name = ROW_AXIS if ROW_AXIS in mesh.axis_names else None
-    col_name = COL_AXIS if COL_AXIS in mesh.axis_names else None
-    frame_name = FRAME_AXIS if FRAME_AXIS in mesh.axis_names else None
-    band_name = BAND_AXIS if BAND_AXIS in mesh.axis_names else None
-    if n_frame > 1 and not shift_bound > 0.0:
-        raise ValueError("A frame axis needs the shift-generic kernel "
-                         "(shift_bound > 0): per-device shifts must be data.")
-    dynamic = shift_bound > 0.0
-
-    s = int(scale)
-    k, c, _, _ = observations.shape
-    h_glob, w_glob = int(image_shape[0]), int(image_shape[1])
-    if k % n_frame:
-        raise ValueError(f"{k} frames not divisible by frame axis {n_frame}.")
-    if c % n_band:
-        raise ValueError(f"{c} channels not divisible by band axis {n_band}.")
-    if h_glob % (n_row * s) or w_glob % (n_col * s):
-        raise ValueError(
-            f"HR shape {(h_glob, w_glob)} must divide into {n_row}x{n_col} "
-            f"scale-aligned tiles."
-        )
-    th, tw = h_glob // n_row, w_glob // n_col
-    k_local = k // n_frame
-    c_local = c // n_band
-
-    kernel_size = 0 if blur_kernel is None else blur_kernel.shape[0]
-    if dynamic:
-        data_reach = required_halo(shift_bound, kernel_size)
-    else:
-        max_sh = float(np.max(np.abs(np.asarray(shifts)))) if k else 0.0
-        data_reach = required_halo(max_sh, kernel_size)
-    reg_reach = regs[0][0].scale_range if fuse_btv else (2 if fuse_tv else 0)
-    q = -(-max(data_reach, reg_reach, s) // s) * s  # round up to multiple of s
-    if q > min(th, tw):
-        raise ValueError(
-            f"Stencil halo ({q}) exceeds the local tile size ({th}x{tw}); "
-            "use fewer tiles or a larger image (single-hop halo exchange)."
-        )
-    ql = q // s
-
-    kernel_np = None if blur_kernel is None else np.asarray(blur_kernel)
-    static_shifts_np = None if dynamic else np.asarray(shifts)
-    if not (isinstance(pallas_tile, (tuple, list)) or pallas_tile > 0):
-        pallas_tile = choose_tile(
-            c_local, s, k_local, static_shifts_np, kernel_np,
-            use_tv=fuse_tv, use_btv=fuse_btv,
-            btv_range=regs[0][0].scale_range if fuse_btv else 0,
-            shift_bound=shift_bound if dynamic else None,
-            image_hw=(th + 2 * q, tw + 2 * q),
-        )
-    lam = (regs[0][1] / n_frame) if regs else 0.0
-
-    # Owned-pixel LR mask of the q-extended tile: static (tiles partition the
-    # image, so the owned center is always inside the global extent).
-    mask_np = np.zeros(((th + 2 * q) // s, (tw + 2 * q) // s), np.float64)
-    mask_np[ql : ql + th // s, ql : ql + tw // s] = 1.0
-
-    if phase_io:
-        x_spec = PartitionSpec(None, band_name, row_name, col_name)
-    else:
-        x_spec = PartitionSpec(band_name, row_name, col_name)
-    w_spec = PartitionSpec(band_name, row_name, col_name)
-    obs_spec = PartitionSpec(frame_name, band_name, row_name, col_name)
-    shifts_spec = PartitionSpec(frame_name, None)
-
-    def _origin():
-        i = lax.axis_index(ROW_AXIS) if n_row > 1 else 0
-        j = lax.axis_index(COL_AXIS) if n_col > 1 else 0
-        return jnp.stack(
-            [jnp.asarray(i * th - q, jnp.int32), jnp.asarray(j * tw - q, jnp.int32)]
-        )
-
-    def _gather_x(x_local):
-        if phase_io:
-            # Plane layout [s*s, C_loc, th/s, tw/s]: a q-HR-pixel halo is a
-            # q/s-plane-row halo on every plane (q is a multiple of s, so
-            # phase assignment is unchanged).
-            return halo_gather(x_local, ql, n_row, n_col)
-        return halo_gather(x_local, q, n_row, n_col)
-
-    def _scatter_g(g):
-        if phase_io:
-            return halo_scatter_sum(g, ql, n_row, n_col)
-        return halo_scatter_sum(g, q, n_row, n_col)
-
-    def _call_kernel(xp, obs_pad, shifts_arg, **reg_kwargs):
-        common = dict(
-            tile=pallas_tile, interpret=interpret, phase_io=phase_io,
-            origin=_origin(), global_hw=(h_glob, w_glob),
-            data_mask_lr=jnp.asarray(mask_np, xp.dtype),
-            # Stacked TV/BTV are bit-exact and origin-aware (their masks run
-            # in global coordinates); the composite tap table stays OFF here
-            # — its exactness proof assumes zeros beyond the global image,
-            # and shard windows carry real halo content.
-            tv_stacked=True, btv_stacked=True,
-        )
-        if dynamic:
-            cost, grad = pallas_data_term_cost_and_grad(
-                xp, obs_pad, None, kernel_np, s,
-                dynamic_shifts=shifts_arg, shift_bound=shift_bound,
-                **common, **reg_kwargs,
-            )
-        else:
-            cost, grad = pallas_data_term_cost_and_grad(
-                xp, obs_pad, static_shifts_np, kernel_np, s,
-                **common, **reg_kwargs,
-            )
-        axes = tuple(
-            n for n in (row_name, col_name, frame_name, band_name) if n
-        )
-        cost = lax.psum(cost, axes)
-        if frame_name is not None:
-            grad = lax.psum(grad, FRAME_AXIS)
-        return cost, _scatter_g(grad)
-
-    def _pad_obs(obs_local):
-        return jnp.pad(
-            obs_local, [(0, 0), (0, 0), (ql, ql), (ql, ql)]
-        )
-
-    def _pad_cst(w_local):
-        # Rim constants ZERO: only owned pixels' regularizer terms count
-        # (each pixel's term is owned by exactly one shard; cross-shard
-        # gradient flow rides the kernel's source-constant convention and the
-        # scatter-sum).
-        return jnp.pad(lam * w_local, [(0, 0), (q, q), (q, q)])
-
-    def value_and_grad(x, weights=()):
-        weights = tuple(weights)
-
-        if fuse_tv:
-            local = lambda xl, ol, sl, wl: _call_kernel(
-                _gather_x(xl), _pad_obs(ol), sl, tv_constants=_pad_cst(wl)
-            )
-        elif fuse_btv:
-            local = lambda xl, ol, sl, wl: _call_kernel(
-                _gather_x(xl), _pad_obs(ol), sl, btv_constants=_pad_cst(wl),
-                btv_range=regs[0][0].scale_range,
-                btv_decay=regs[0][0].spatial_decay,
-            )
-        else:
-            local = lambda xl, ol, sl: _call_kernel(
-                _gather_x(xl), _pad_obs(ol), sl
-            )
-        if regs:
-            specs = (x_spec, obs_spec, shifts_spec, w_spec)
-            args = (x, observations, shifts_j, weights[0])
-        else:
-            specs = (x_spec, obs_spec, shifts_spec)
-            args = (x, observations, shifts_j)
-        return jax.shard_map(
-            local, mesh=mesh, in_specs=specs, out_specs=(PartitionSpec(), x_spec),
-            check_vma=False,
-        )(*args)
-
-    # Dynamic mode: ``shifts`` may be a traced argument of the enclosing jit
-    # (estimated motion, per-window reuse) — the kernel consumes it as data.
-    shifts_j = jnp.asarray(shifts)
-
-    def prepare(weights):
-        """Bind IRLS weights: pack the per-shard constants windows ONCE per
-        inner solve (the same hoist every other fused path does)."""
-        weights = tuple(weights)
-        if fuse_tv or fuse_btv:
-            if fuse_tv:
-                packer = lambda wl: pack_tv_constants(
-                    _pad_cst(wl), s, pallas_tile
-                )
-            else:
-                packer = lambda wl: pack_btv_constants(
-                    _pad_cst(wl), s, regs[0][0].scale_range, pallas_tile
-                )
-            pspec = PartitionSpec(None, None, band_name, row_name, col_name)
-            packed = jax.shard_map(
-                packer, mesh=mesh, in_specs=(w_spec,), out_specs=pspec,
-                check_vma=False,
-            )(weights[0])
-            if fuse_tv:
-                local = lambda xl, ol, sl, pk: _call_kernel(
-                    _gather_x(xl), _pad_obs(ol), sl, tv_constants_packed=pk
-                )
-            else:
-                local = lambda xl, ol, sl, pk: _call_kernel(
-                    _gather_x(xl), _pad_obs(ol), sl, btv_constants_packed=pk,
-                    btv_range=regs[0][0].scale_range,
-                    btv_decay=regs[0][0].spatial_decay,
-                )
-            return lambda x: jax.shard_map(
-                local, mesh=mesh,
-                in_specs=(x_spec, obs_spec, shifts_spec, pspec),
-                out_specs=(PartitionSpec(), x_spec), check_vma=False,
-            )(x, observations, shifts_j, packed)
-        return lambda x: value_and_grad(x, weights)
-
-    value_and_grad.prepare = prepare
-    value_and_grad.phase_io = phase_io
-    value_and_grad.halo = q
-    if phase_io:
-        value_and_grad.to_planes = lambda x: hr_to_planes(x, s)
-        value_and_grad.from_planes = lambda p: planes_to_hr(p, s)
-    return value_and_grad
 
 
 def make_tiled_map_value_and_grad(

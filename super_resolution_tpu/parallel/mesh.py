@@ -5,7 +5,7 @@ loops over serially is a mesh axis here:
 
 - ``frame`` — the K low-res observations (the ``for image_index`` loop,
   ``objective_data_term.cpp:104-115``): pure data parallelism, per-iteration
-  gradient/cost reduced with a psum over ICI.
+  gradient/cost reduced with a psum.
 - ``band``  — spectral channels / PCA components (the ``split_channels`` loop,
   ``irls_map_solver.cpp:200-229``): embarrassingly parallel band solves.
 - ``row`` / ``col`` — spatial tiles of the HR estimate with halo exchange
@@ -13,7 +13,8 @@ loops over serially is a mesh axis here:
 
 Multi-host: call ``jax.distributed.initialize()`` before building the mesh;
 ``jax.devices()`` then spans all hosts and the same NamedSharding code runs
-collectives over ICI/DCN unchanged.
+its collectives unchanged. Cards joined all to all (NVLink) have no torus to
+follow: the mesh is ``jax.devices()`` in order, shaped by the algorithm.
 """
 
 from __future__ import annotations

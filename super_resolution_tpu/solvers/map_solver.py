@@ -31,40 +31,10 @@ class MapSolverOptions:
     # evaluations per gradient, tiny validation problems only).
     diff_mode: str = "analytic"
     split_channels: bool = False
-    # Use the fused Pallas TPU kernel for the data term. ``None`` (default)
-    # = AUTO: on at solve time whenever the backend is a TPU and
-    # ``diff_mode == "analytic"`` (the production path — the traced fallback
-    # measured ~3x slower per evaluation), off on CPU (the interpret-mode
-    # kernel is for tests). Explicit True/False forces the choice; the
-    # reference's binary and its solver are one code path
-    # (``super_resolution.cpp:126-199``), and with AUTO so are ours.
-    use_pallas_data_term: bool | None = None
     # Specialize the data term on host-known shifts (unrolled per-frame
-    # slices). Measured SLOWER than the vmapped traced path on TPU (the
-    # batched form fuses better), so off by default; kept for CPU use and
-    # as the semantics reference for the Pallas kernel.
+    # slices) instead of the vmapped traced-shift form, which serves any
+    # motion from one executable.
     use_static_shifts: bool = False
-    # Pallas kernel tile size in HR pixels; 0 = VMEM-aware automatic choice
-    # (ops/pallas/degrade.py choose_tile). 512 measured fastest for the
-    # 1-channel 4x 1000^2 benchmark shape.
-    pallas_tile: int | tuple[int, int] = 0  # 0 = VMEM-aware auto; (rows, cols) ok
-    # > 0 selects the shift-generic fused kernel: motion shifts are runtime
-    # data (SMEM tap tables) and ONE compiled executable serves every shift
-    # set with max(|dx|, |dy|) <= bound — use for estimated motion, video
-    # sliding windows, and frame-sharded meshes, where per-shift-set
-    # recompiles (minutes on a remote-compile toolchain) are unacceptable.
-    # 0 forces the trace-time-specialized kernel (fastest for one fixed,
-    # host-known motion sequence). ``None`` (default) = AUTO: the solver
-    # picks ``shift_bound_bucket(max|shift|)`` when the motion is fractional
-    # (estimated registration — every distinct shift set would otherwise
-    # recompile the specialized kernel) or a frame mesh is present (per-
-    # device shifts must be runtime data), and 0 otherwise.
-    pallas_shift_bound: float | None = None
-    # Bands per kernel grid step; 0 = automatic (largest channel block that
-    # keeps the spatial tile at the 1-band optimum; see
-    # ops/pallas/degrade.py choose_channel_block). Hyperspectral stacks keep
-    # large, lane-filling tiles this way instead of OOM-shrinking them.
-    pallas_channel_block: int = 0
     # Run the ENTIRE IRLS loop in one jitted graph (irls_solve_fused): the
     # outer reweighting becomes a lax.while_loop around the inner CG/L-BFGS
     # while_loop — zero host round-trips per IRLS iteration. The host-loop
@@ -95,8 +65,7 @@ class IRLSMapSolverOptions(MapSolverOptions):
     # against the current HR estimate by damped Gauss-Newton on the data
     # term (motion/refinement.py) — recovers estimated-registration error
     # (~0.1 HR px, bounded by LR aliasing) once the solve has sharpened x.
-    # Requires shifts to be runtime data of the inner solve (AUTO selects
-    # the shift-generic kernel when this is on), so the refined shifts
+    # Shifts stay runtime data of the inner solve, so the refined shifts
     # reuse ONE compiled executable. The reference estimates motion once
     # and never revisits it (registration.cpp:161-201). Composes with the
     # host IRLS loop AND fused_irls (the refinement joins the fused

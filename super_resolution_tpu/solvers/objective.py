@@ -129,22 +129,6 @@ def make_map_value_and_grad(
     max_shift: int = 16,
     diff_mode: str = "analytic",
     static_shifts=None,
-    use_pallas: bool = False,
-    pallas_tile: int = 0,
-    pallas_shift_bound: float = 0.0,
-    pallas_channel_block: int = 0,
-    phase_io: bool = False,
-    pallas_skip_extent_masks: bool = False,
-    pallas_memo_extent_masks: bool = False,
-    pallas_composite_data_term: bool | None = None,
-    # Phase-stacked fused TV (round 5): all s^2 phases ride one stacked 5D
-    # value inside the kernel — bit-exact on the gradient, measured +5.3%
-    # on the flagship solve in-session. Default ON for the production
-    # single-device path (the kernel falls back to per-phase at s == 1).
-    pallas_tv_stacked: bool = True,
-    # Same restructuring for the fused BTV window terms (one neighbor stack
-    # per offset instead of s^2 per-phase slices).
-    pallas_btv_stacked: bool = True,
 ) -> Callable:
     """Build ``value_and_grad(x, weights) -> (cost, grad)`` for the MAP objective.
 
@@ -158,159 +142,15 @@ def make_map_value_and_grad(
       the reference's numerical-differentiation validation mode,
       ``map_solver.h:64-69``, with machine-precision derivatives).
 
-    ``use_pallas`` selects the fused Pallas kernel for the data term. With
-    ``static_shifts`` the kernel specializes on the motion at trace time
-    (fastest for one fixed sequence); with ``pallas_shift_bound > 0`` and no
-    static shifts, the **shift-generic** kernel consumes the traced
-    ``shifts`` argument at run time, so one compiled executable serves any
-    motion with ``max(|dx|, |dy|) <= pallas_shift_bound``.
-
-    ``pallas_skip_extent_masks`` drops the kernel's global-extent masks —
-    PERF ATTRIBUTION ONLY (experiments/tpu_roofline*.py): the result is
-    numerically wrong at image borders.
+    ``static_shifts`` (host-known ``(dx, dy)`` pairs) specializes the
+    analytic data term on the motion at trace time
+    (:func:`data_term_cost_and_grad_static`); otherwise the traced
+    ``shifts`` are used, so one executable serves any motion.
     """
     if diff_mode not in ("analytic", "autodiff", "numerical"):
         raise ValueError(f"Unknown diff_mode {diff_mode!r}")
 
     regs = tuple(regularizers)
-
-    pallas_dynamic = use_pallas and static_shifts is None
-    if pallas_dynamic and not pallas_shift_bound > 0.0:
-        raise ValueError(
-            "use_pallas requires static_shifts, or pallas_shift_bound > 0 "
-            "for the shift-generic kernel."
-        )
-
-    # Fuse a single 2D/3D TV or BTV term into the data-term kernel — one
-    # launch for the whole MAP objective evaluation (flags needed up front
-    # so the VMEM-aware tile choice can account for the fused planes).
-    from super_resolution_tpu.ops.btv import BilateralTotalVariationRegularizer
-    from super_resolution_tpu.ops.tv import TotalVariationRegularizer
-
-    fuse_tv = (
-        use_pallas
-        and len(regs) == 1
-        and isinstance(regs[0][0], TotalVariationRegularizer)
-        and regs[0][1] > 0.0
-    )
-    tv_use_3d = fuse_tv and regs[0][0].use_3d
-    fuse_btv = (
-        use_pallas
-        and len(regs) == 1
-        and isinstance(regs[0][0], BilateralTotalVariationRegularizer)
-        and regs[0][1] > 0.0
-    )
-
-    # Phase-plane solver-state IO: only meaningful when EVERY term of the
-    # objective is computed by the fused kernel (unfused regularizers and
-    # the autodiff cost need image-space x).
-    if phase_io and not (
-        use_pallas and diff_mode == "analytic" and (not regs or fuse_tv or fuse_btv)
-    ):
-        raise ValueError(
-            "phase_io requires the fully fused analytic Pallas objective "
-            "(no regularizers, or one fused TV/BTV term)."
-        )
-
-    if use_pallas:
-        import numpy as _np
-
-        from super_resolution_tpu.ops.pallas.degrade import (
-            choose_channel_block,
-            choose_tile,
-            composite_is_exact,
-        )
-
-        kernel_np = None if blur_kernel is None else _np.asarray(blur_kernel)
-        # AUTO composite (None): merge warp+blur into one tap table per
-        # frame whenever the static analysis proves it exact for this
-        # geometry (border band unreachable). Resolved BEFORE the tile
-        # choice: composite drops the z1/g1 intermediates, so the VMEM
-        # model admits bigger tiles.
-        if pallas_composite_data_term is None:
-            pallas_composite_data_term = (
-                static_shifts is not None
-                and composite_is_exact(
-                    static_shifts, kernel_np, scale,
-                    (observations.shape[2] * scale,
-                     observations.shape[3] * scale),
-                )
-            )
-        explicit = (
-            isinstance(pallas_tile, (tuple, list)) or pallas_tile > 0
-        )  # (rows, cols) tuples are always explicit
-        num_channels = observations.shape[1]
-        if not explicit:
-            if pallas_channel_block == 0 and num_channels > 1 and not tv_use_3d:
-                # Multi-band: pick the largest channel block that keeps the
-                # spatial tile at the 1-band optimum (the grid gains a
-                # channel axis instead of the tile shrinking).
-                pallas_channel_block, pallas_tile = choose_channel_block(
-                    num_channels, scale, observations.shape[0],
-                    static_shifts, kernel_np,
-                    use_tv=fuse_tv, use_btv=fuse_btv,
-                    btv_range=regs[0][0].scale_range if fuse_btv else 0,
-                    shift_bound=pallas_shift_bound if pallas_dynamic else None,
-                    image_hw=(observations.shape[2] * scale,
-                              observations.shape[3] * scale),
-                    composite=bool(pallas_composite_data_term),
-                )
-            else:
-                # VMEM-aware automatic tile; an explicit pallas_tile overrides
-                # (e.g. 512 measured fastest for the 1-channel 4x bench shape).
-                pallas_tile = choose_tile(
-                    num_channels, scale, observations.shape[0],
-                    static_shifts, kernel_np,
-                    use_tv=fuse_tv, use_btv=fuse_btv,
-                    btv_range=regs[0][0].scale_range if fuse_btv else 0,
-                    shift_bound=pallas_shift_bound if pallas_dynamic else None,
-                    image_hw=(observations.shape[2] * scale,
-                              observations.shape[3] * scale),
-                    composite=bool(pallas_composite_data_term),
-                )
-    else:
-        kernel_np = None
-        pallas_tile = 0
-
-    if pallas_composite_data_term is None:
-        pallas_composite_data_term = False  # non-pallas paths: irrelevant
-
-    def data_cost_grad(x, **fused_reg_kwargs):
-        if use_pallas:
-            from super_resolution_tpu.ops.pallas.degrade import (
-                pallas_data_term_cost_and_grad,
-            )
-
-            if pallas_dynamic:
-                return pallas_data_term_cost_and_grad(
-                    x, observations, None, kernel_np, scale,
-                    tile=pallas_tile, dynamic_shifts=shifts,
-                    shift_bound=pallas_shift_bound,
-                    channel_block=pallas_channel_block, phase_io=phase_io,
-                    skip_extent_masks=pallas_skip_extent_masks,
-                    memo_extent_masks=pallas_memo_extent_masks,
-                    tv_stacked=pallas_tv_stacked,
-                    btv_stacked=pallas_btv_stacked,
-                    **fused_reg_kwargs,
-                )
-            return pallas_data_term_cost_and_grad(
-                x, observations, static_shifts, kernel_np, scale,
-                tile=pallas_tile, channel_block=pallas_channel_block,
-                phase_io=phase_io,
-                skip_extent_masks=pallas_skip_extent_masks,
-                memo_extent_masks=pallas_memo_extent_masks,
-                composite_data_term=pallas_composite_data_term,
-                tv_stacked=pallas_tv_stacked,
-                btv_stacked=pallas_btv_stacked,
-                **fused_reg_kwargs,
-            )
-        if static_shifts is not None:
-            return data_term_cost_and_grad_static(
-                x, observations, static_shifts, blur_kernel, scale
-            )
-        return data_term_cost_and_grad(
-            x, observations, shifts, blur_kernel, scale, max_shift
-        )
 
     def cost_fn(x, weights):
         cost = data_term_cost(x, observations, shifts, blur_kernel, scale, max_shift)
@@ -350,20 +190,14 @@ def make_map_value_and_grad(
         return value_and_grad
 
     def value_and_grad(x, weights=()):
-        if fuse_tv:
-            lam = regs[0][1]
-            return data_cost_grad(
-                x, tv_constants=lam * tuple(weights)[0], tv_use_3d=tv_use_3d
+        if static_shifts is not None:
+            cost, grad = data_term_cost_and_grad_static(
+                x, observations, static_shifts, blur_kernel, scale
             )
-        if fuse_btv:
-            reg, lam = regs[0]
-            return data_cost_grad(
-                x,
-                btv_constants=lam * tuple(weights)[0],
-                btv_range=reg.scale_range,
-                btv_decay=reg.spatial_decay,
+        else:
+            cost, grad = data_term_cost_and_grad(
+                x, observations, shifts, blur_kernel, scale, max_shift
             )
-        cost, grad = data_cost_grad(x)
         for (reg, lam), w in zip(regs, tuple(weights)):
             if lam <= 0.0:
                 continue
@@ -372,43 +206,9 @@ def make_map_value_and_grad(
             grad = grad + g
         return cost, grad
 
-    def prepare(weights):
-        """Bind the IRLS weights, hoisting weight-dependent packing out of
-        the inner solve's while loop (the weights are fixed across one inner
-        CG/L-BFGS solve; XLA does not hoist the packing itself)."""
-        weights = tuple(weights)
-        if fuse_tv:
-            from super_resolution_tpu.ops.pallas.degrade import pack_tv_constants
-
-            packed = pack_tv_constants(regs[0][1] * weights[0], scale, pallas_tile)
-            return lambda x: data_cost_grad(
-                x, tv_constants_packed=packed, tv_use_3d=tv_use_3d
-            )
-        if fuse_btv:
-            from super_resolution_tpu.ops.pallas.degrade import pack_btv_constants
-
-            reg, lam = regs[0]
-            packed = pack_btv_constants(
-                lam * weights[0], scale, reg.scale_range, pallas_tile
-            )
-            return lambda x: data_cost_grad(
-                x,
-                btv_constants_packed=packed,
-                btv_range=reg.scale_range,
-                btv_decay=reg.spatial_decay,
-            )
-        return lambda x: value_and_grad(x, weights)
-
-    value_and_grad.prepare = prepare
-    value_and_grad.phase_io = phase_io
-    if phase_io:
-        from super_resolution_tpu.ops.pallas.degrade import (
-            hr_to_planes,
-            planes_to_hr,
-        )
-
-        value_and_grad.to_planes = lambda x: hr_to_planes(x, scale)
-        value_and_grad.from_planes = lambda p: planes_to_hr(p, scale)
+    value_and_grad.prepare = lambda weights: (
+        lambda x: value_and_grad(x, tuple(weights))
+    )
     return value_and_grad
 
 

@@ -1,11 +1,11 @@
-"""Shift-add fusion baseline (TPU-native equivalent of
+"""Shift-add fusion baseline (the JAX equivalent of
 ``src/shift_add_fusion.cpp``).
 
 Places each LR pixel of frame k at HR position ``(s*y - dy_k, s*x - dx_k)``
 (:58-77), masks unfilled HR pixels, and inpaints the holes (:84-90, where the
 reference uses cv::inpaint Navier-Stokes).
 
-TPU-native formulation: "place pixel (y, x) at (s*y - dy, s*x - dx)" is
+Array formulation: "place pixel (y, x) at (s*y - dy, s*x - dx)" is
 exactly ``translate(zero_upsample(frame, s), -dx, -dy)`` with integer shifts
 — no scatter. Later frames overwrite earlier ones at collisions (matching the
 reference's sequential ``at<uchar>() =`` writes). Hole filling is an

@@ -1,4 +1,4 @@
-"""ENVI BSQ hyperspectral binary I/O (TPU-native equivalent of
+"""ENVI BSQ hyperspectral binary I/O (the JAX equivalent of
 ``src/hyperspectral/hyperspectral_data_loader.{h,cpp}``).
 
 Supports the reference's surface: BSQ (band-sequential) float32 binary data

@@ -1,4 +1,4 @@
-"""Spectral-basis PCA for hyperspectral stacks (TPU-native equivalent of
+"""Spectral-basis PCA for hyperspectral stacks (the JAX equivalent of
 ``src/hyperspectral/spectral_pca.cpp``).
 
 Training data is a subsampled set of pixel spectra: ``10 * num_bands``
@@ -8,8 +8,9 @@ sample matrix (equivalent to cv::PCA DATA_AS_ROW), truncated either to a band
 count or to a retained-variance fraction (``spectral_pca.h:46-76``).
 
 Projection/backprojection are per-pixel matmuls — ``[C, H, W]`` reshaped to
-``[H*W, C]`` and multiplied by the basis, which is exactly the MXU-shaped
-operation the reference does with scalar loops (``spectral_pca.cpp:94-161``).
+``[H*W, C]`` and multiplied by the basis — one matrix product where the
+reference runs scalar loops (``spectral_pca.cpp:94-161``), kept at full
+float32 precision (a GPU may otherwise run it in TF32).
 Components are sign-canonicalized (largest-|entry| positive) since the PCA
 sign is arbitrary.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from super_resolution_tpu.image.image_data import ImageData, SpectralMode
@@ -98,8 +100,10 @@ class SpectralPCA:
         """``[C, H, W]`` spectra -> ``[k, H, W]`` PCA coefficients."""
         c, h, w = x.shape
         flat = x.reshape(c, h * w).T  # [P, C]
-        coeffs = (flat - jnp.asarray(self.mean, x.dtype)) @ jnp.asarray(
-            self.basis.T, x.dtype
+        coeffs = jnp.matmul(
+            flat - jnp.asarray(self.mean, x.dtype),
+            jnp.asarray(self.basis.T, x.dtype),
+            precision=jax.lax.Precision.HIGHEST,
         )  # [P, k]
         return coeffs.T.reshape(self.num_pca_bands, h, w)
 
@@ -107,9 +111,10 @@ class SpectralPCA:
         """``[k, H, W]`` PCA coefficients -> ``[C, H, W]`` spectra."""
         k, h, w = y.shape
         coeffs = y.reshape(k, h * w).T  # [P, k]
-        flat = coeffs @ jnp.asarray(self.basis, y.dtype) + jnp.asarray(
-            self.mean, y.dtype
-        )
+        flat = jnp.matmul(
+            coeffs, jnp.asarray(self.basis, y.dtype),
+            precision=jax.lax.Precision.HIGHEST,
+        ) + jnp.asarray(self.mean, y.dtype)
         return flat.T.reshape(self.num_spectral_bands, h, w)
 
     # ----------------------------------------------------- ImageData wrappers

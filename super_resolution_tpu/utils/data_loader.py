@@ -11,8 +11,10 @@ from __future__ import annotations
 
 import os
 
-import cv2
 import numpy as np
+
+# OpenCV is imported inside the functions that use it: the package, the
+# solver and the CLI on ENVI input run without it.
 
 from super_resolution_tpu.image.image_data import ImageData
 from super_resolution_tpu.spectral.envi import HyperspectralDataLoader
@@ -28,6 +30,8 @@ def load_image(file_path: str) -> ImageData:
     """Load a standard image (normalized to [0, 1]) or an ENVI config path."""
     ext = os.path.splitext(file_path)[1].lower()
     if ext in _IMAGE_EXTENSIONS:
+        import cv2
+
         image = cv2.imread(file_path, cv2.IMREAD_UNCHANGED)
         if image is None:
             raise FileNotFoundError(f"Could not read image {file_path}")
@@ -54,6 +58,8 @@ def save_image(image: ImageData, file_path: str) -> None:
     n = image.total_num_channels
     ext = os.path.splitext(file_path)[1].lower()
     if n in (1, 3) and ext in _IMAGE_EXTENSIONS:
+        import cv2
+
         cv2.imwrite(file_path, image.visualization_image())
     else:
         HyperspectralDataLoader(file_path).save_image(image)

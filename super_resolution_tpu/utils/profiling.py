@@ -19,7 +19,7 @@ __all__ = ["trace", "WallClock", "device_time"]
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/srtpu_trace"):
+def trace(log_dir: str = "jax_trace"):
     """Capture a jax.profiler device trace (view with TensorBoard/XProf)."""
     jax.profiler.start_trace(log_dir)
     try:

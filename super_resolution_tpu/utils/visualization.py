@@ -5,7 +5,7 @@ The reference offers an interactive OpenCV window with drag-to-zoom
 state machine (left-drag draws a selection rectangle and zooms in on
 release, right-click zooms back out, an interrupted drag cancels) with the
 rendering callback injected so the logic is unit-testable without a
-display. In headless environments (the norm for TPU hosts) display falls
+display. In headless environments (the norm for accelerator hosts) display falls
 back to writing PNG files and reporting their paths.
 """
 
@@ -14,8 +14,10 @@ from __future__ import annotations
 import os
 import tempfile
 
-import cv2
 import numpy as np
+
+# OpenCV is imported inside the functions that use it: the package, the
+# solver and the CLI on ENVI input run without it.
 
 __all__ = [
     "display_image",
@@ -52,6 +54,8 @@ class ZoomInteraction:
         self.zoomed = False
 
     def on_mouse(self, event: int, x: int, y: int, flags: int = 0) -> None:
+        import cv2
+
         if event == cv2.EVENT_RBUTTONDOWN and self.zoomed:
             self._show(self.image)
             self.zoomed = False
@@ -86,6 +90,8 @@ class ZoomInteraction:
 
 
 def _fit(image: np.ndarray) -> np.ndarray:
+    import cv2
+
     h, w = image.shape[:2]
     scale = min(_MAX_DISPLAY_W / w, _MAX_DISPLAY_H / h, 1.0)
     if scale < 1.0:
@@ -107,6 +113,8 @@ def _has_display() -> bool:
 
 
 def _show_or_save(image: np.ndarray, title: str) -> str | None:
+    import cv2
+
     if _has_display():
         try:
             cv2.namedWindow(title, cv2.WINDOW_AUTOSIZE)
@@ -141,6 +149,8 @@ def display_image(image, title: str = "Image") -> str | None:
 def display_images_side_by_side(images, title: str = "Images") -> str | None:
     """Horizontal stitch (``visualization.cpp:138-169``); smaller images are
     padded to the tallest height."""
+    import cv2
+
     mats = [_vis(img) for img in images]
     max_h = max(m.shape[0] for m in mats)
     padded = []

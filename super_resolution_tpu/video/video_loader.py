@@ -10,8 +10,10 @@ from __future__ import annotations
 
 import os
 
-import cv2
 import numpy as np
+
+# OpenCV is imported inside the functions that use it: the package, the
+# solver and the CLI on ENVI input run without it.
 
 __all__ = ["VideoLoader"]
 
@@ -21,6 +23,8 @@ class VideoLoader:
         self._frames: list[np.ndarray] = []  # HWC float64 in [0, 1]
 
     def load_frames_from_video(self, video_path: str, max_frames: int = 0) -> None:
+        import cv2
+
         capture = cv2.VideoCapture(video_path)
         if not capture.isOpened():
             raise FileNotFoundError(f"Could not open video {video_path}")
@@ -69,6 +73,8 @@ class VideoLoader:
         apart, stopping early on any keypress. Headless (no $DISPLAY): the
         resized frames are written to a temp directory instead and the paths
         returned (None when displayed interactively)."""
+        import cv2
+
         import tempfile
 
         display_size = (1000, 600)  # kDisplayFrameSize, video_loader.cpp:19

@@ -1,4 +1,4 @@
-"""Single-level Haar wavelet transform (TPU-native equivalent of
+"""Single-level Haar wavelet transform (the JAX equivalent of
 ``src/wavelet/wavelet_transform.cpp``).
 
 Per-2x2-block coefficients with 0.5 scaling (:63-115):

@@ -134,10 +134,10 @@ def test_wavelet_domain_tiled_16_frame_solve():
 
 
 def test_wavelet_domain_tiled_irls_solver():
-    """BASELINE config 5 through the PRODUCTION solver (VERDICT r2 #4):
+    """BASELINE config 5 through the PRODUCTION solver:
     the four subbands stacked as channels of ONE IRLSMapSolver solve on a
-    row x col mesh — routed through the fused-kernel tiled objective
-    (make_tiled_pallas_vg) rather than hand-built minimize() calls."""
+    row x col mesh — routed through the halo-exchange tiled objective
+    rather than hand-built minimize() calls."""
     import cv2
 
     from super_resolution_tpu.ops.tv import TotalVariationRegularizer
@@ -169,7 +169,6 @@ def test_wavelet_domain_tiled_irls_solver():
     solver = IRLSMapSolver(
         IRLSMapSolverOptions(
             max_num_irls_iterations=2, max_num_solver_iterations=30,
-            use_pallas_data_term=True, pallas_tile=8,
         ),
         sub_model, [np.asarray(f) for f in stacked], mesh=mesh,
     )

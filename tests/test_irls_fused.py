@@ -98,21 +98,10 @@ def test_fused_irls_solver_toggle():
     _, fused = run(fused_irls=True)
     assert matrices_equal(fused, host, 1e-8)
 
-    # Pallas path under the fused loop == the host loop on the SAME
-    # objective path (different objective paths diverge in trajectory at
-    # this problem's convergence threshold, which is expected).
-    _, host_pallas = run(use_pallas_data_term=True, pallas_tile=8)
-    _, fused_pallas = run(fused_irls=True, use_pallas_data_term=True, pallas_tile=8)
-    assert matrices_equal(fused_pallas, host_pallas, 1e-8)
-    # Shift-generic kernel under the fused loop == its own host loop (the
-    # per-eval kernels agree to machine precision, but a full IRLS trajectory
-    # amplifies last-bit differences through the signum TV gradients, so
-    # cross-path comparisons are only convergence-point-close).
-    _, host_dyn = run(use_pallas_data_term=True, pallas_tile=8,
-                      pallas_shift_bound=2.0)
-    _, fused_dyn = run(fused_irls=True, use_pallas_data_term=True,
-                       pallas_tile=8, pallas_shift_bound=2.0)
-    assert matrices_equal(fused_dyn, host_dyn, 1e-8)
+    # The static-shift objective under the fused loop == its own host loop.
+    _, host_static = run(use_static_shifts=True)
+    _, fused_static = run(fused_irls=True, use_static_shifts=True)
+    assert matrices_equal(fused_static, host_static, 1e-8)
 
     solver, _ = run(fused_irls=True)
     with pytest.raises(ValueError, match="checkpoint"):
@@ -120,11 +109,11 @@ def test_fused_irls_solver_toggle():
 
 
 class TestFusedIrlsOnMeshes:
-    """fused_irls x mesh (VERDICT r3 #5): the all-in-graph IRLS loop around
-    the fused-Pallas SHARDED objectives. Each case compares against the
-    host-loop solver on the SAME sharded objective path (same kernels, same
-    reduction orders) — near-bitwise agreement expected; single-device
-    quality parity is covered by test_mesh_solver.py."""
+    """fused_irls x mesh: the all-in-graph IRLS loop around the sharded
+    objectives (GSPMD on frame/band meshes, the halo-exchange tiled
+    objective on row/col meshes). Each case compares against the host-loop
+    solver on the SAME sharded objective path — near-bitwise agreement
+    expected; single-device parity is covered by test_mesh_paths.py."""
 
     def _problem(self, channels=2, frames=4, fractional=False, seed=77):
         rng = np.random.default_rng(seed)
@@ -142,8 +131,7 @@ class TestFusedIrlsOnMeshes:
 
     def _run(self, model, obs, hr, mesh, **extra):
         opts = IRLSMapSolverOptions(
-            max_num_irls_iterations=2, max_num_solver_iterations=5,
-            use_pallas_data_term=True, pallas_tile=8, **extra,
+            max_num_irls_iterations=2, max_num_solver_iterations=5, **extra,
         )
         solver = IRLSMapSolver(opts, model, obs, mesh=mesh)
         solver.add_regularizer(TotalVariationRegularizer(), 0.01)
@@ -171,14 +159,13 @@ class TestFusedIrlsOnMeshes:
             pytest.skip("needs 4 virtual devices")
         hr, model, obs = self._problem(fractional=True)
         mesh = make_mesh({FRAME_AXIS: 4}, jax.devices()[:4])
-        host = self._run(model, obs, hr, mesh, pallas_shift_bound=2.0)
-        fused = self._run(model, obs, hr, mesh, pallas_shift_bound=2.0,
-                          fused_irls=True)
+        host = self._run(model, obs, hr, mesh)
+        fused = self._run(model, obs, hr, mesh, fused_irls=True)
         assert matrices_equal(fused, host, 1e-8)
 
-    def test_ineligible_mesh_raises(self):
-        """A mesh configuration that falls back to the traced objective has
-        no fused-IRLS route — explicit error, not a silent downgrade."""
+    def test_two_regularizer_band_mesh_runs(self):
+        """Every mesh has a fused-IRLS route: a band mesh with a 2D and a
+        3D TV term runs and matches its host loop."""
         import pytest
 
         from super_resolution_tpu.parallel import BAND_AXIS, make_mesh
@@ -187,19 +174,23 @@ class TestFusedIrlsOnMeshes:
             pytest.skip("needs 2 virtual devices")
         hr, model, obs = self._problem(channels=2)
         mesh = make_mesh({BAND_AXIS: 2}, jax.devices()[:2])
-        opts = IRLSMapSolverOptions(fused_irls=True, use_pallas_data_term=True)
-        solver = IRLSMapSolver(opts, model, obs, mesh=mesh)
-        # TWO regularizers -> not kernel-fusable -> no fused mesh route.
-        solver.add_regularizer(TotalVariationRegularizer(), 0.01)
-        solver.add_regularizer(TotalVariationRegularizer(use_3d_total_variation=True), 0.01)
-        with pytest.warns(RuntimeWarning, match="falling back"):
-            with pytest.raises(ValueError, match="fused_irls on this mesh"):
-                solver.solve(jnp.zeros_like(hr))
+
+        def run(**extra):
+            opts = IRLSMapSolverOptions(
+                max_num_irls_iterations=2, max_num_solver_iterations=5, **extra
+            )
+            solver = IRLSMapSolver(opts, model, obs, mesh=mesh)
+            solver.add_regularizer(TotalVariationRegularizer(), 0.01)
+            solver.add_regularizer(
+                TotalVariationRegularizer(use_3d_total_variation=True), 0.01
+            )
+            return np.asarray(solver.solve(jnp.zeros_like(hr)))
+
+        assert matrices_equal(run(fused_irls=True), run(), 1e-8)
 
     def test_spatial_mesh(self):
         """fused_irls x row/col mesh: the all-in-graph IRLS loop around the
-        halo-exchange tiled fused-kernel objective (the third mesh route the
-        shared builder serves)."""
+        halo-exchange tiled objective."""
         import pytest
 
         from super_resolution_tpu.parallel import COL_AXIS, ROW_AXIS, make_mesh

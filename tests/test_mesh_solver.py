@@ -77,10 +77,10 @@ def test_spatial_mesh_irls_solver_parity(reg_kind):
 
 
 @pytest.mark.parametrize("reg_kind", ["tv", "btv"])
-def test_spatial_mesh_pallas_routing_parity(reg_kind):
-    """IRLSMapSolver(mesh=row x col, use_pallas_data_term=True) routes
-    through the fused-kernel tiled objective (make_tiled_pallas_vg) and
-    matches the single-device fused solve (VERDICT r2 #4)."""
+def test_spatial_mesh_halo_routing_parity(reg_kind):
+    """IRLSMapSolver(mesh=row x col) routes through the halo-exchange tiled
+    objective (make_tiled_map_value_and_grad) and matches the
+    single-device solve."""
     import super_resolution_tpu.parallel.halo as halo_mod
     from super_resolution_tpu.ops.btv import BilateralTotalVariationRegularizer
     from super_resolution_tpu.parallel import COL_AXIS, ROW_AXIS
@@ -94,8 +94,6 @@ def test_spatial_mesh_pallas_routing_parity(reg_kind):
         ImageModelParameters(scale=2, blur_radius=3, blur_sigma=1.0, motion_sequence=seq)
     )
     obs = [np.asarray(model.apply(hr, k)) for k in range(4)]
-    # 2x2 (4 shards): the test cost is per-shard SPMD compile of the
-    # interpret-mode kernel, linear in shard count (8 shards took ~100 s).
     mesh = make_mesh({ROW_AXIS: 2, COL_AXIS: 2}, jax.devices()[:4])
     reg = (
         TotalVariationRegularizer()
@@ -104,41 +102,35 @@ def test_spatial_mesh_pallas_routing_parity(reg_kind):
     )
 
     calls = {"n": 0}
-    orig = halo_mod.make_tiled_pallas_vg
+    orig = halo_mod.make_tiled_map_value_and_grad
 
     def counted(*a, **k):
         calls["n"] += 1
         return orig(*a, **k)
 
-    halo_mod.make_tiled_pallas_vg = counted
+    halo_mod.make_tiled_map_value_and_grad = counted
     try:
         results = {}
         for label, m in (("single", None), ("tiled", mesh)):
-            # Short inner solves, and the single-device REFERENCE runs the
-            # traced objective (same math to f64 precision; kernel-vs-kernel
-            # parity is test_halo_pallas' job): the expensive part of this
-            # test is compiling the interpret-mode kernel solve, so only the
-            # mesh side — the path under test — pays it.
             solver = IRLSMapSolver(
                 IRLSMapSolverOptions(
                     max_num_irls_iterations=2, max_num_solver_iterations=8,
-                    use_pallas_data_term=m is not None, pallas_tile=8,
                 ),
                 model, obs, mesh=m,
             )
             solver.add_regularizer(reg, 0.001)
             results[label] = np.asarray(solver.solve(np.zeros((1, 16, 16))))
     finally:
-        halo_mod.make_tiled_pallas_vg = orig
-    assert calls["n"] >= 1  # the mesh solve actually took the fused path
+        halo_mod.make_tiled_map_value_and_grad = orig
+    assert calls["n"] >= 1  # the mesh solve actually took the halo path
     p_single = float(psnr(results["single"], np.asarray(hr)))
     p_tiled = float(psnr(results["tiled"], np.asarray(hr)))
     assert abs(p_single - p_tiled) < 0.1, (p_single, p_tiled)
 
 
 def test_spatial_x_frame_mesh_solver_parity():
-    """Composite row x col x frame mesh through IRLSMapSolver: the fused
-    tiled path with the shift-generic kernel (per-device shifts as data)."""
+    """Composite row x col x frame mesh through IRLSMapSolver: the
+    GSPMD-partitioned objective (the halo path is spatial-only)."""
     from super_resolution_tpu.parallel import COL_AXIS, ROW_AXIS
 
     rng = np.random.default_rng(13)
@@ -154,14 +146,9 @@ def test_spatial_x_frame_mesh_solver_parity():
     mesh = make_mesh({ROW_AXIS: 2, COL_AXIS: 2, FRAME_AXIS: 2})
     results = {}
     for label, m in (("single", None), ("tiled", mesh)):
-        # Single-device reference = traced objective; only the mesh side
-        # compiles the (slow on CPU) shift-generic interpret kernel — see
-        # test_spatial_mesh_pallas_routing_parity.
         solver = IRLSMapSolver(
             IRLSMapSolverOptions(
                 max_num_irls_iterations=2, max_num_solver_iterations=6,
-                use_pallas_data_term=m is not None,
-                pallas_tile=8, pallas_shift_bound=2.0,
             ),
             model, obs, mesh=m,
         )

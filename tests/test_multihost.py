@@ -1,8 +1,9 @@
 """Multi-process (multi-host loopback) distributed solve test.
 
 Spawns 2 processes joined by ``jax.distributed.initialize`` over localhost —
-the exact code path used across TPU pod hosts — and checks the frame-sharded
-solve against a local reference inside each process."""
+the code path a multi-host run takes — and checks the frame-sharded solve
+against a local reference inside each process. The children are pinned to
+the CPU, so the test never opens an accelerator."""
 
 import os
 import subprocess
@@ -18,6 +19,7 @@ SCRIPT = os.path.join(REPO, "experiments", "multihost_loopback.py")
 def test_two_process_loopback():
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     env["PYTHONPATH"] = REPO
+    env["JAX_PLATFORMS"] = "cpu"
     result = subprocess.run(
         [sys.executable, SCRIPT],
         env=env,

@@ -52,20 +52,20 @@ def test_native_invalid_crop(lib, tmp_path):
         native.read_bsq(path, 2, 2, 2, crop=((0, 3), (0, 2), (0, 2)))
 
 
-def test_native_reference_envi_file(lib, test_data_dir):
+def test_native_reference_envi_file(lib, seeded_data_dir):
     """The native loader reads the reference's coordinate-encoded test cube."""
     out = native.read_bsq(
-        f"{test_data_dir}/example_envi_data", 10, 9, 5, crop=((5, 10), (2, 8), (0, 3))
+        f"{seeded_data_dir}/example_envi_data", 10, 9, 5, crop=((5, 10), (2, 8), (0, 3))
     )
     assert out.shape == (5, 6, 3)
     assert abs(float(out[0, 0, 0]) - 5.20) < 1e-6
     assert abs(float(out[4, 5, 2]) - 9.72) < 1e-6
 
 
-def test_envi_loader_uses_native_when_available(lib, test_data_dir):
+def test_envi_loader_uses_native_when_available(lib, seeded_data_dir):
     from super_resolution_tpu.spectral import HyperspectralDataLoader
 
-    loader = HyperspectralDataLoader(f"{test_data_dir}/test_hs_config.txt")
+    loader = HyperspectralDataLoader(f"{seeded_data_dir}/test_hs_config.txt")
     loader.load_image_from_envi_file()
     image = loader.get_image()
     assert image.num_channels == 5

@@ -44,8 +44,7 @@ TRUE = [(0, 0), (1.25, 0.5), (-0.75, 1.5), (0.5, -1.25)]
 # stack, where the converged residuals still expose shift error — the
 # regime where alternating solve/refine contracts fast (~4x on the first
 # round). At K == s^2 the data term is exactly determined and x absorbs
-# most of the shift error (contraction ~0.65/round; see
-# experiments/tpu_refine_loo.py for the production-geometry numbers).
+# most of the shift error (slower contraction per round).
 TRUE6 = TRUE + [(0.3, 0.9), (-1.1, -0.4)]
 
 
@@ -164,14 +163,9 @@ class TestSolverIntegration:
             opts = IRLSMapSolverOptions(refine_motion_every=1, **kw)
             return IRLSMapSolver(opts, model, [np.asarray(o) for o in obs])
 
-        with pytest.raises(ValueError, match="runtime data"):
-            build(use_pallas_data_term=True, pallas_shift_bound=0.0).solve(
-                jnp.zeros_like(x)
-            )
         with pytest.raises(ValueError, match="use_static_shifts"):
             build(use_static_shifts=True).solve(jnp.zeros_like(x))
-        # Non-frame meshes stay rejected (band/spatial placements bake or
-        # tile the shifts); pure frame meshes are supported since round 5.
+        # Non-frame meshes stay rejected; pure frame meshes are supported.
         import jax as _jax
 
         from super_resolution_tpu.parallel import ROW_AXIS, make_mesh
@@ -214,17 +208,20 @@ class TestSolverIntegration:
         np.testing.assert_allclose(shifts_mesh, shifts_single, atol=1e-7)
         np.testing.assert_allclose(out_mesh, out_single, atol=1e-6)
 
-    def test_auto_routing_selects_shift_generic_kernel(self):
-        """refine_motion_every>0 + Pallas AUTO -> the shift-generic kernel
-        (runtime shifts), even for integer starting shifts."""
-        from super_resolution_tpu.solvers.irls import resolve_auto_options
+    def test_refined_solves_share_one_executable(self):
+        """Refined shifts are runtime data of the inner solve: solvers that
+        start from different motion reuse one built executable (the shift
+        values stay out of the cache key)."""
+        import super_resolution_tpu.solvers.irls as irls_mod
 
-        opts = IRLSMapSolverOptions(refine_motion_every=1)
-        resolved = resolve_auto_options(
-            opts, backend="tpu", shifts=np.asarray([[0.0, 0.0], [1.0, 1.0]])
-        )
-        assert resolved.use_pallas_data_term
-        assert resolved.pallas_shift_bound > 0.0
+        irls_mod._BUILT_SOLVER_CACHE.clear()
+        for seed in (31, 32):
+            self._solve(self._perturbed(seed=seed, mag=0.1), refine=True,
+                        irls_iters=2)
+        inner_keys = [k for k in irls_mod._BUILT_SOLVER_CACHE
+                      if k[0] != "refine"]
+        assert len(inner_keys) == 1
+        irls_mod._BUILT_SOLVER_CACHE.clear()
 
 
 def test_refine_every_two_does_not_exit_before_first_refinement():

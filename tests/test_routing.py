@@ -1,11 +1,11 @@
-"""Production-path routing: AUTO option resolution, mesh-fallback warnings,
-the LRU executable cache, and the registration unit convention.
+"""Production-path routing: which objective a solve builds, mesh-fallback
+warnings, the LRU executable cache, and the registration unit convention.
 
 The reference's binary IS its production solver (one code path,
 ``super_resolution.cpp:126-199``); these tests pin the rules that make the
-same true here — a default-options solve on a TPU backend must route through
-the fused Pallas kernel, estimated (fractional) motion must select the
-shift-generic kernel, and any mesh fallback must be audible.
+same true here — one XLA objective per placement, chosen from the mesh the
+caller passes, shift values out of the executable cache key unless the
+caller asks for static shifts, and any mesh fallback audible.
 """
 
 import numpy as np
@@ -18,60 +18,6 @@ from super_resolution_tpu.models import ImageModel, ImageModelParameters
 from super_resolution_tpu.motion import MotionShift, MotionShiftSequence
 from super_resolution_tpu.ops.tv import TotalVariationRegularizer
 from super_resolution_tpu.solvers import IRLSMapSolver, IRLSMapSolverOptions
-from super_resolution_tpu.solvers.irls import resolve_auto_options
-
-
-INT_SHIFTS = np.array([[0.0, 0.0], [1.0, -2.0]])
-FRAC_SHIFTS = np.array([[0.0, 0.0], [0.5, -1.25]])
-
-
-def test_auto_tpu_integer_shifts_specialized_kernel():
-    opts = resolve_auto_options(
-        IRLSMapSolverOptions(), backend="tpu", shifts=INT_SHIFTS
-    )
-    assert opts.use_pallas_data_term is True
-    assert opts.pallas_shift_bound == 0.0  # trace-specialized kernel
-
-
-def test_auto_tpu_fractional_shifts_generic_kernel():
-    opts = resolve_auto_options(
-        IRLSMapSolverOptions(), backend="tpu", shifts=FRAC_SHIFTS
-    )
-    assert opts.use_pallas_data_term is True
-    # bucket(max|shift|) = bucket(1.25) = 2 (power-of-two buckets, min 2)
-    assert opts.pallas_shift_bound == 2.0
-
-
-def test_auto_tpu_frame_mesh_generic_kernel():
-    opts = resolve_auto_options(
-        IRLSMapSolverOptions(), backend="tpu", shifts=INT_SHIFTS, frame_mesh=True
-    )
-    assert opts.pallas_shift_bound == 2.0
-
-
-def test_auto_cpu_traced_path():
-    opts = resolve_auto_options(
-        IRLSMapSolverOptions(), backend="cpu", shifts=FRAC_SHIFTS
-    )
-    assert opts.use_pallas_data_term is False
-    assert opts.pallas_shift_bound == 0.0
-
-
-def test_auto_autodiff_disables_pallas():
-    opts = resolve_auto_options(
-        IRLSMapSolverOptions(diff_mode="autodiff"), backend="tpu",
-        shifts=FRAC_SHIFTS,
-    )
-    assert opts.use_pallas_data_term is False
-
-
-def test_explicit_settings_pass_through():
-    opts = resolve_auto_options(
-        IRLSMapSolverOptions(use_pallas_data_term=False, pallas_shift_bound=8.0),
-        backend="tpu", shifts=FRAC_SHIFTS,
-    )
-    assert opts.use_pallas_data_term is False
-    assert opts.pallas_shift_bound == 8.0
 
 
 def _tiny_problem(shifts=((0, 0), (1, 1), (-1, 0), (0, -1)), scale=2, n=12,
@@ -88,47 +34,104 @@ def _tiny_problem(shifts=((0, 0), (1, 1), (-1, 0), (0, -1)), scale=2, n=12,
 
 
 def test_solver_records_resolved_options():
-    """A default-options solve exposes the resolved routing (CPU here ->
-    traced path); forcing Pallas + AUTO bound on fractional motion selects
-    the shift-generic kernel end to end."""
+    """A default-options solve exposes the options it ran with, and
+    fractional motion solves through the same traced-shift objective."""
     hr, model, obs = _tiny_problem()
     solver = IRLSMapSolver(IRLSMapSolverOptions(max_num_irls_iterations=1),
                            model, obs)
     solver.add_regularizer(TotalVariationRegularizer(), 0.01)
     solver.solve(jnp.zeros_like(hr))
-    assert solver.last_resolved_options.use_pallas_data_term is False
+    assert isinstance(solver.last_resolved_options, IRLSMapSolverOptions)
+    assert solver.last_resolved_options.use_static_shifts is False
     assert solver.last_inner_iterations > 0
 
     hr2, model2, obs2 = _tiny_problem(shifts=((0, 0), (0.5, -0.75)))
     solver2 = IRLSMapSolver(
-        IRLSMapSolverOptions(max_num_irls_iterations=1,
-                             use_pallas_data_term=True, pallas_tile=8),
-        model2, obs2,
+        IRLSMapSolverOptions(max_num_irls_iterations=1), model2, obs2,
     )
     solver2.add_regularizer(TotalVariationRegularizer(), 0.01)
     out = solver2.solve(jnp.zeros_like(hr2))
-    assert solver2.last_resolved_options.pallas_shift_bound == 2.0
     assert np.isfinite(np.asarray(out)).all()
 
 
-def test_band_mesh_fallback_warns():
-    """A mesh config that misses fused-path eligibility must say so."""
-    if len(jax.devices()) < 2:
-        pytest.skip("needs >= 2 virtual devices")
-    from super_resolution_tpu.parallel import BAND_AXIS, make_mesh
+def _solver_cache_entries(monkeypatch, options, shift_sets):
+    import super_resolution_tpu.solvers.irls as irls_mod
 
-    hr, model, obs = _tiny_problem(channels=2)
-    mesh = make_mesh({BAND_AXIS: 2}, jax.devices()[:2])
-    solver = IRLSMapSolver(
-        IRLSMapSolverOptions(max_num_irls_iterations=1,
-                             use_pallas_data_term=True),
-        model, obs, mesh=mesh,
-    )
-    # TWO regularizers -> not kernel-fusable -> fallback warning.
-    solver.add_regularizer(TotalVariationRegularizer(), 0.01)
-    solver.add_regularizer(TotalVariationRegularizer(use_3d_total_variation=True), 0.01)
-    with pytest.warns(RuntimeWarning, match="fused-Pallas"):
+    monkeypatch.setattr(irls_mod, "_BUILT_SOLVER_CACHE", type(irls_mod._BUILT_SOLVER_CACHE)())
+    for shifts in shift_sets:
+        hr, model, obs = _tiny_problem(shifts=shifts)
+        solver = IRLSMapSolver(options, model, obs)
+        solver.add_regularizer(TotalVariationRegularizer(), 0.01)
         solver.solve(jnp.zeros_like(hr))
+    return len(irls_mod._BUILT_SOLVER_CACHE)
+
+
+SHIFT_SETS = (((0, 0), (1, 1), (-1, 0)), ((0, 0), (1, -1), (0, 1)))
+
+
+def test_traced_shifts_share_one_executable(monkeypatch):
+    """By default shifts are traced arguments: new motion reuses the built
+    solver (video sliding windows depend on it)."""
+    opts = IRLSMapSolverOptions(max_num_irls_iterations=1)
+    assert _solver_cache_entries(monkeypatch, opts, SHIFT_SETS) == 1
+
+
+def test_static_shifts_specialize_per_motion(monkeypatch):
+    """use_static_shifts bakes the motion into the trace, so each shift set
+    builds its own solver."""
+    opts = IRLSMapSolverOptions(max_num_irls_iterations=1,
+                                use_static_shifts=True)
+    assert _solver_cache_entries(monkeypatch, opts, SHIFT_SETS) == 2
+
+
+def test_static_and_traced_shifts_agree():
+    """The static-shift objective is the traced one, specialized: the two
+    solves agree."""
+    hr, model, obs = _tiny_problem(shifts=((0, 0), (1, 1), (0.5, -0.5)))
+    outs = []
+    for static in (False, True):
+        solver = IRLSMapSolver(
+            IRLSMapSolverOptions(max_num_irls_iterations=2,
+                                 use_static_shifts=static),
+            model, obs,
+        )
+        solver.add_regularizer(TotalVariationRegularizer(), 0.01)
+        outs.append(np.asarray(solver.solve(jnp.zeros_like(hr))))
+    np.testing.assert_allclose(outs[1], outs[0], atol=1e-8)
+
+
+@pytest.mark.parametrize("axes,spatial", [
+    ({"frame": 2}, False), ({"band": 2}, False), ({"row": 2}, True),
+    ({"col": 2}, True), ({"row": 2, "col": 2}, True),
+])
+def test_mesh_routes_to_its_objective(axes, spatial):
+    """Row/col meshes get the halo-exchange tiled objective; frame and band
+    meshes the GSPMD-partitioned single-program objective."""
+    from super_resolution_tpu.parallel import make_mesh
+
+    n = int(np.prod(list(axes.values())))
+    hr, model, obs = _tiny_problem(channels=2, n=16)
+    mesh = make_mesh(axes, jax.devices()[:n])
+    solver = IRLSMapSolver(IRLSMapSolverOptions(), model, obs, mesh=mesh)
+    solver.add_regularizer(TotalVariationRegularizer(), 0.01)
+    built = solver._spatial_objective(IRLSMapSolverOptions(), 2)
+    assert (built is not None) == spatial
+
+
+def test_spatial_mesh_fallback_warns():
+    """A spatial mesh the halo path cannot serve (3D TV couples bands) says
+    so and solves through the GSPMD objective."""
+    from super_resolution_tpu.parallel import ROW_AXIS, make_mesh
+
+    hr, model, obs = _tiny_problem(channels=2, n=16)
+    mesh = make_mesh({ROW_AXIS: 2}, jax.devices()[:2])
+    solver = IRLSMapSolver(
+        IRLSMapSolverOptions(max_num_irls_iterations=1), model, obs, mesh=mesh,
+    )
+    solver.add_regularizer(TotalVariationRegularizer(use_3d_total_variation=True), 0.01)
+    with pytest.warns(RuntimeWarning, match="spatial halo-exchange"):
+        out = solver.solve(jnp.zeros_like(hr))
+    assert np.isfinite(np.asarray(out)).all()
 
 
 def test_built_solver_cache_lru_capped(monkeypatch):

@@ -1,18 +1,13 @@
 """The scaling harness (bench.py --config scaling) runs on the virtual CPU
-mesh and its collective schedule stays flat as the mesh grows (VERDICT r3 #3
-done-criterion; BASELINE.json north-star scaling artifact)."""
+mesh and its collective schedule stays flat as the mesh grows (BASELINE.json
+north-star scaling artifact)."""
 
+import os
 import sys
 
 import pytest
 
-import jax
-
-sys.path.insert(0, "/root/repo")
-
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 4, reason="needs 4 virtual devices"
-)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 @pytest.mark.timeout(900)
@@ -25,10 +20,11 @@ def test_scaling_harness_runs_and_collectives_stay_flat():
     assert [p["devices"] for p in points] == [1, 2, 4]
     for p in points:
         assert p["frame_iters_per_s"] > 0
-    # The contract: the per-evaluation collective schedule (psums inside the
-    # CG while_loop body) does not grow with the mesh — N devices psum the
-    # same scalar cost + one gradient image.
-    ars = [p["all_reduce"] for p in points]
-    cps = [p["collective_permute"] for p in points]
+    # The contract: the per-evaluation collective schedule (reductions
+    # inside the CG while_loop body) does not grow with the mesh — N devices
+    # reduce the same scalar cost + one gradient image. One device has none.
+    ars = [p["all_reduce"] for p in points[1:]]
+    cps = [p["collective_permute"] for p in points[1:]]
+    assert points[0]["all_reduce"] == 0 and ars[0] > 0
     assert len(set(ars)) == 1, ars
     assert len(set(cps)) == 1, cps

@@ -95,9 +95,9 @@ def test_pca_image_data_wrappers():
     assert recon.spectral_mode == SpectralMode.HYPERSPECTRAL
 
 
-def test_envi_header_parse(test_data_dir):
+def test_envi_header_parse(seeded_data_dir):
     """Golden header values (``test_hyperspectral_data_loader.cpp:35-49``)."""
-    params = read_envi_header(f"{test_data_dir}/example_envi_header.hdr")
+    params = read_envi_header(f"{seeded_data_dir}/example_envi_header.hdr")
     assert params.interleave == "bsq"
     assert params.data_type == "float"
     assert params.big_endian is False
@@ -107,9 +107,9 @@ def test_envi_header_parse(test_data_dir):
     assert params.num_data_bands == 1506
 
 
-def test_envi_crop_read(test_data_dir):
+def test_envi_crop_read(seeded_data_dir):
     """Value-encodes-coordinates goldens (``test_hyperspectral_data_loader.cpp:52-84``)."""
-    loader = HyperspectralDataLoader(f"{test_data_dir}/test_hs_config.txt")
+    loader = HyperspectralDataLoader(f"{seeded_data_dir}/test_hs_config.txt")
     loader.load_image_from_envi_file()
     image = loader.get_image()
     assert image.size == (3, 6)  # (width, height)
@@ -129,9 +129,9 @@ def test_envi_crop_read(test_data_dir):
     assert matrices_equal(np.asarray(image.channel(4)), expected_ch4, 1e-6)
 
 
-def test_envi_save_load_round_trip(test_data_dir, tmp_path):
+def test_envi_save_load_round_trip(seeded_data_dir, tmp_path):
     """Save -> load round trip (``test_hyperspectral_data_loader.cpp:88-111``)."""
-    loader = HyperspectralDataLoader(f"{test_data_dir}/test_hs_config.txt")
+    loader = HyperspectralDataLoader(f"{seeded_data_dir}/test_hs_config.txt")
     loader.load_image_from_envi_file()
     original = loader.get_image()
 

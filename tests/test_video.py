@@ -10,8 +10,8 @@ from super_resolution_tpu.video import VideoLoader, VideoSuperResolver
 
 
 @pytest.fixture()
-def frame_dir(tmp_path, test_data_dir):
-    img = cv2.imread(f"{test_data_dir}/fb.png", cv2.IMREAD_GRAYSCALE)
+def frame_dir(tmp_path, seeded_data_dir):
+    img = cv2.imread(f"{seeded_data_dir}/fb.png", cv2.IMREAD_GRAYSCALE)
     d = tmp_path / "frames"
     d.mkdir()
     for i in range(4):
@@ -29,8 +29,8 @@ def test_load_frames_from_directory(frame_dir):
     assert 0.0 <= stack.min() and stack.max() <= 1.0
 
 
-def test_load_frames_from_video(tmp_path, test_data_dir):
-    img = cv2.imread(f"{test_data_dir}/fb.png", cv2.IMREAD_COLOR)
+def test_load_frames_from_video(tmp_path, seeded_data_dir):
+    img = cv2.imread(f"{seeded_data_dir}/fb.png", cv2.IMREAD_COLOR)
     path = str(tmp_path / "clip.avi")
     writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 5, (28, 28))
     for i in range(6):
